@@ -1,27 +1,18 @@
 #!/usr/bin/env python
-"""Scaling report for the distributed whole-map BA, in three honest parts.
-
-The r4 verdict called the old number (wall-clock efficiency 0.081 on 8
-virtual CPU devices sharing host cores, toy problem) meaningless. This
-version reports what can actually be measured in this environment plus a
-stated-assumption projection:
+"""Scaling report for the distributed whole-map BA, in two parts.
 
   A. DEVICE COMPUTE at map scale — the single-device landmark-chunked VI GBA
-     per-iteration time ON THE REAL ACCELERATOR, on the REAL map when a
-     checkpoint from the flagship clone run exists
-     (eval_clone --save-ckpt, /tmp/mc_slam_clone_ckpt.npz), else a
-     synthetic problem at the same scale (128 KF / 12k pts / 50k obs).
-  B. COMM STRUCTURE on an 8-virtual-device CPU mesh (subprocess) — validates
-     the sharded program executes the same math (equality is separately
-     asserted in tests/test_parallel.py); its wall clock is NOT a
-     scaling measurement and is labeled as such.
-  C. ICI PROJECTION — per-iteration collective volume (analytic, exact for
-     this program: one psum of the (Nc*DC)^2 reduced system + one
-     all_gather of the (Np,3) landmark update) against measured A, under
-     stated v5e ring assumptions. The result is the projected parallel
-     efficiency at N real chips, with every assumption in the output.
+     per-iteration time on the GPU, on the real map when a checkpoint from
+     a clone run exists (eval_clone --save-ckpt, .data/clone_ckpt.npz),
+     else on the synthetic problem at the same scale
+     (bench_problems.gba_map_problem: 128 KF / 12k pts / ~50k obs).
+  B. COMM STRUCTURE on an 8-virtual-device CPU mesh (a child process that
+     stays on the CPU) — validates that the sharded program executes the
+     same math (equality is separately asserted in tests/test_parallel.py);
+     its wall clock is NOT a scaling measurement and is labeled as such.
 
-Prints one JSON line.
+The measured multi-card number comes from `chip_smoke.py --four`, which runs
+the sharded GBA on four cards against one. Prints one JSON line.
 """
 import json
 import os
@@ -31,13 +22,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-CKPT = os.environ.get("MC_SLAM_SCALE_CKPT", "/tmp/mc_slam_clone_ckpt.npz")
-
-# v5e ICI assumptions (public "How to Scale Your Model" numbers: v5e has
-# 4 ICI links x ~50 GB/s usable each direction; a bidirectional ring
-# all-reduce of V bytes over p chips moves 2(p-1)/p * V per link)
-ICI_BW_LINK = 45e9          # usable bytes/s per link direction (conservative)
-ICI_HOP_LAT = 1e-6          # per-hop latency [s]
+CKPT = os.path.join(os.path.dirname(__file__), "..", ".data",
+                    "clone_ckpt.npz")
 
 
 def timeit(f, n=3, warm=1):
@@ -57,12 +43,12 @@ def build_problem():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from mc_slam_tpu.solver import ba_chunked, factors
-    from mc_slam_tpu.solver.ba_vi import IMUEdges
-    from mc_slam_tpu.camera import euroc_camera
+    from mc_slam.solver import ba_chunked, factors
+    from mc_slam.solver.ba_vi import IMUEdges
+    from mc_slam.camera import euroc_camera
 
     if os.path.exists(CKPT):
-        from mc_slam_tpu.io.checkpoint import load_map
+        from mc_slam.io.checkpoint import load_map
         m, extra = load_map(CKPT)
         act = [s for s in extra["kf_slots"]]
         Nc = len(act)
@@ -85,7 +71,7 @@ def build_problem():
         # IMU chain edges over consecutive keyframes
         pre = jax.tree_util.tree_map(lambda a: a[ks[1:]], m.kf_preint)
         info_prv = factors.imu_prv_info(pre)
-        from mc_slam_tpu.imu.preintegration import euroc_noise
+        from mc_slam.imu.preintegration import euroc_noise
         noise = euroc_noise()
         info_bias = factors.bias_rw_info(pre.dT, float(noise.sigma_bg),
                                          float(noise.sigma_ba))
@@ -101,19 +87,8 @@ def build_problem():
         return (ns, m.mp_pos, cobs, edges, euroc_camera(),
                 factors.identity_extrinsics(), gw, free, pt_mask, meta)
     # fallback: synthetic at euroc-map scale
-    from mc_slam_tpu.bench_problems import vi_window_problem
-    import numpy as np
-    p = vi_window_problem(n_kf=128, n_pts=12288, obs_per_kf=400)
-    obs = p["obs"]
-    n_chunks = 96
-    cobs, C = ba_chunked.chunk_observations(
-        np.asarray(obs.cam), np.asarray(obs.pt), np.asarray(obs.uv),
-        np.asarray(obs.inv_sigma2), np.asarray(obs.valid),
-        p["pts"].shape[0], n_chunks)
-    meta = {"source": "synthetic", "n_kf": 128, "n_pts": 12288,
-            "n_obs": int(np.asarray(obs.valid).sum()), "chunks": n_chunks}
-    return (p["ns"], p["pts"], cobs, p["edges"], p["cam"], p["ext"],
-            p["gw"], p["free"], p["pt_mask"], meta)
+    from mc_slam.bench_problems import gba_map_problem
+    return gba_map_problem()
 
 
 def mesh_sub():
@@ -121,8 +96,8 @@ def mesh_sub():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp  # noqa
-    from mc_slam_tpu.parallel import dist_ba, dist_gba
-    from mc_slam_tpu.solver import ba_chunked
+    from mc_slam.parallel import dist_ba, dist_gba
+    from mc_slam.solver import ba_chunked
     iters = 4
     (ns, pts, cobs, edges, cam, ext, gw, free, ptm, meta) = build_problem()
     n_dev = len(jax.devices())
@@ -151,14 +126,11 @@ def main():
     if "--mesh-sub" in sys.argv:
         return mesh_sub()
     import jax
-    if jax.default_backend() != "cpu":
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("MC_SLAM_JAXCACHE",
-                                         "/tmp/mc_slam_jaxcache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    import jax.numpy as jnp  # noqa
-    from mc_slam_tpu.solver import ba_chunked
-    from mc_slam_tpu.solver.ba_vi import DC
+    from mc_slam import runtime
+    runtime.use_gpu()
+    runtime.setup_compile_cache()
+    from mc_slam.solver import ba_chunked
+    from mc_slam.solver.ba_vi import DC
 
     iters = 8
     (ns, pts, cobs, edges, cam, ext, gw, free, ptm, meta) = build_problem()
@@ -172,61 +144,37 @@ def main():
     t1 = timeit(single)
     t_iter = t1 / iters
 
-    # C: collective volume per iteration (exact for this program)
+    # collective volume per iteration (exact for this program): one psum of
+    # the reduced camera system + one all_gather of the landmark update
     Nc = ns.P.shape[0]
     Np = pts.shape[0]
     d = Nc * DC
     psum_bytes = (d * d + d + d + 1) * 4
     ag_bytes = Np * 3 * 4
-    V = psum_bytes + ag_bytes
 
-    def project(p_chips):
-        # ring all-reduce: 2(p-1)/p * V per link + 2(p-1) hop latencies
-        t_comm = (2 * (p_chips - 1) / p_chips) * V / ICI_BW_LINK \
-            + 2 * (p_chips - 1) * ICI_HOP_LAT
-        t_par = t_iter / p_chips + t_comm
-        return {"chips": p_chips,
-                "t_iter_ms": round(1e3 * t_par, 3),
-                "iters_s": round(1.0 / t_par, 1),
-                "t_comm_us": round(1e6 * t_comm, 1),
-                "efficiency": round(t_iter / p_chips / t_par, 4)}
+    # B: CPU-mesh structural run (a child on the CPU with 8 virtual devices;
+    # it never opens the card)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = env.get("XLA_FLAGS", "") + \
+        " --xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--mesh-sub"], capture_output=True, text=True,
+                       timeout=1200, env=env, check=True)
+    cpu_part = json.loads(r.stdout.strip().splitlines()[-1])
 
-    # B: CPU-mesh structural run (subprocess with forced cpu + 8 devices)
-    cpu_part = {}
-    try:
-        env = dict(os.environ)
-        env["XLA_FLAGS"] = env.get("XLA_FLAGS", "") + \
-            " --xla_force_host_platform_device_count=8"
-        env["JAX_PLATFORMS"] = "cpu"
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--mesh-sub"], capture_output=True, text=True,
-                           timeout=1200, env=env, check=True)
-        cpu_part = json.loads(r.stdout.strip().splitlines()[-1])
-    except Exception as e:
-        cpu_part = {"cpu_mesh_error": str(e)[:200]}
-
-    try:
-        ca = jax.jit(single).lower().compile().cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        flops = float(ca.get("flops", 0.0)) / iters
-    except Exception:
-        flops = 0.0
+    ca = jax.jit(single).lower().compile().cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    flops = float(ca.get("flops", 0.0)) / iters
 
     out = {
         "problem": meta,
-        "platform_compute": jax.devices()[0].platform,
-        "measured_iter_ms_1dev": round(1e3 * t_iter, 2),
-        "measured_iters_s_1dev": round(1.0 / t_iter, 2),
+        "device": runtime.device_info(jax.devices()),
+        "measured_iter_ms_1dev": 1e3 * t_iter,
         "comm_per_iter_bytes": {"psum_reduced_system": psum_bytes,
                                 "all_gather_landmarks": ag_bytes},
         "flops_per_iter": flops,
-        "flops_per_comm_byte": round(flops / max(V, 1), 1),
-        "ici_assumptions": {"bw_per_link_GBs": ICI_BW_LINK / 1e9,
-                            "hop_latency_us": ICI_HOP_LAT * 1e6,
-                            "collective": "bidirectional ring all-reduce, "
-                                          "2(p-1)/p * V per link"},
-        "projected": [project(p) for p in (2, 4, 8, 16)],
         "cpu_mesh_structural": {**cpu_part,
                                 "note": "virtual devices share host cores; "
                                         "validates the sharded program, NOT "

@@ -34,8 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def render_lapped_sequence(seed, frames, laps=2, tex_scale=1.0, duration=64.0):
     """Returns (hists (F,W) unnormalized desc sets, poses [(C_w, R_wc)])."""
-    from mc_slam_tpu.camera import euroc_camera
-    from mc_slam_tpu.sim import MavTrajectory, RoomWorld
+    from mc_slam.camera import euroc_camera
+    from mc_slam.sim import MavTrajectory, RoomWorld
     cam = euroc_camera()
     world = RoomWorld(np.random.default_rng(seed), tex_size=1024,
                       tex_scale=tex_scale)
@@ -55,27 +55,27 @@ def main():
     ap.add_argument("--laps", type=int, default=2)
     ap.add_argument("--n-feat", type=int, default=1024)
     ap.add_argument("--out", default="")
-    ap.add_argument("--platform", default="",
-                    help="jax platform; empty = device default (extraction "
-                         "on-chip is ~1000x the CPU rate)")
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"],
+                    help="cpu (default) or gpu (fails when JAX finds no GPU)")
     args = ap.parse_args()
 
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    if jax.default_backend() != "cpu":
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("MC_SLAM_JAXCACHE",
-                                         "/tmp/mc_slam_jaxcache"))
+    from mc_slam import runtime
+    if args.platform == "gpu":
+        runtime.use_gpu()
+        runtime.setup_compile_cache()
+    else:
+        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from mc_slam_tpu.frontend import bow, extractor
+    from mc_slam.frontend import bow, extractor
 
     vocab = bow.load_default_vocab()
     idf = bow.load_default_idf()
     print(f"# vocab: {vocab.shape[0]} words, idf "
           f"{'loaded' if idf is not None else 'absent'}", file=sys.stderr)
 
-    results = {"worlds": {}, "vocab_words": int(vocab.shape[0]),
+    results = {"device": runtime.device_info(jax.devices()),
+               "worlds": {}, "vocab_words": int(vocab.shape[0]),
                "train_seeds": [100, 101, 102]}
     # seeds 100-102 are the TRAINING worlds (train_vocab.py); 207/213 are
     # held out; 213 additionally runs with a periodic (self-aliased) texture

@@ -84,9 +84,9 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from mc_slam_tpu.camera import euroc_camera
-    from mc_slam_tpu.sim import MavTrajectory, RoomWorld
-    from mc_slam_tpu.sim.euroc_writer import EurocWriter
+    from mc_slam.camera import euroc_camera
+    from mc_slam.sim import MavTrajectory, RoomWorld
+    from mc_slam.sim.euroc_writer import EurocWriter
 
     rng = np.random.default_rng(args.seed)
     cam = euroc_camera()

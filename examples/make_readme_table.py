@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Regenerate the README robustness table from artifacts/ate_clone_*.json
-(the config/euroc.yaml:18-20 per-sequence quality table analog). Replaces
-the block after the ROBUSTNESS_TABLE marker in README.md."""
+(written by examples/eval_clone.py --out; the config/euroc.yaml:18-20
+per-sequence quality table analog). Replaces the block after the
+ROBUSTNESS_TABLE marker in README.md. The fps column names the card; a run
+off the GPU reads "not measured"."""
 import json
 import os
 import sys
@@ -30,14 +32,16 @@ def row(profile, desc):
     else:
         outcome = "fails (lost)"
     ate = d.get("ate_rmse_post_init", -1)
+    dev = d.get("device", {})
+    fps = (f"{d['e2e_fps_amortized']:.1f} ({dev['kind']})"
+           if dev.get("platform") == "gpu" else "not measured")
     return (f"| {profile} | {desc} | {outcome} | "
-            f"{1e3 * ate:.1f} mm | {d.get('loops_closed', 0)} | "
-            f"{d.get('e2e_fps_amortized', 0):.1f} |")
+            f"{1e3 * ate:.1f} mm | {d.get('loops_closed', 0)} | {fps} |")
 
 
 def main():
     lines = [
-        "| profile | conditions | outcome | ATE (post-init) | loops closed | fps |",
+        "| profile | conditions | outcome | ATE (post-init) | loops closed | fps (card) |",
         "|---|---|---|---|---|---|",
     ]
     for prof, desc in PROFILES:

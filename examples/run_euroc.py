@@ -35,10 +35,10 @@ def main():
     args = ap.parse_args()
 
     import jax.numpy as jnp
-    from mc_slam_tpu.camera import euroc_camera
-    from mc_slam_tpu.eval.ate import ate_rmse
-    from mc_slam_tpu.io import euroc, trajectory
-    from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem
+    from mc_slam.camera import euroc_camera
+    from mc_slam.eval.ate import ate_rmse
+    from mc_slam.io import euroc, trajectory
+    from mc_slam.pipeline.system import SlamConfig, SlamSystem
 
     # EuRoC Tbc (config/euroc.yaml:40-44)
     Tbc = np.array([
@@ -59,15 +59,10 @@ def main():
                          vi_init_time=15.0, g_mag=9.810)
     slam = SlamSystem(cam, cfg, Tbc=None if args.no_imu else Tbc)
 
-    from mc_slam_tpu.io import native_loader
+    from mc_slam.io import native_loader
 
     def frames():
-        if native_loader.available():
-            print("# using native C++ prefetch loader", file=sys.stderr)
-            yield from native_loader.NativeEurocLoader(args.mav0)
-        else:
-            for t_frame, path, imu_rows in euroc.slice_imu_per_frame(seq):
-                yield t_frame, euroc.load_gray_image(path), imu_rows
+        yield from native_loader.NativeEurocLoader(args.mav0)
 
     times = []
     n = 0

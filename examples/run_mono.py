@@ -33,13 +33,13 @@ def main():
     ap.add_argument("--n-levels", type=int, default=8)
     args = ap.parse_args()
 
-    from mc_slam_tpu.camera import make_camera
-    from mc_slam_tpu.eval.ate import ate_rmse
-    from mc_slam_tpu.io import euroc, trajectory
-    from mc_slam_tpu.io.datasets import (KITTI_CAMERAS, TUM_CAMERAS,
+    from mc_slam.camera import make_camera
+    from mc_slam.eval.ate import ate_rmse
+    from mc_slam.io import euroc, trajectory
+    from mc_slam.io.datasets import (KITTI_CAMERAS, TUM_CAMERAS,
                                          load_kitti_sequence,
                                          load_tum_sequence)
-    from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem
+    from mc_slam.pipeline.system import SlamConfig, SlamSystem
 
     if args.kind == "tum":
         seq = load_tum_sequence(args.root, with_depth=args.depth)

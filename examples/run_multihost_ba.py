@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Multi-host distributed Schur BA demo (BASELINE.json config #5).
+"""Multi-process distributed Schur BA demo (BASELINE.json config #5), a
+CPU-only demonstration of jax.distributed: every process pins the CPU
+backend and never opens a GPU.
 
 Each process initializes jax.distributed, joins a global mesh, and runs the
 landmark-sharded Schur solve — landmarks partitioned per process, the dense
-camera system reduced with one psum (ICI/DCN), solve replicated. On real pods
-run one process per host; for a local demonstration launch with --demo N to
-spawn N processes on this machine over virtual CPU devices:
+camera system reduced with one psum, solve replicated. Launch with --demo N
+to spawn N processes on this machine over virtual CPU devices:
 
     python examples/run_multihost_ba.py --demo 2
 
@@ -30,8 +31,8 @@ def worker(coord, n_procs, pid, devices_per_proc):
     import numpy as np
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from mc_slam_tpu.parallel import dist_ba
-    from mc_slam_tpu.solver import lm
+    from mc_slam.parallel import dist_ba
+    from mc_slam.solver import lm
 
     n_dev = len(jax.devices())
     assert n_dev == n_procs * devices_per_proc, (n_dev, n_procs, devices_per_proc)

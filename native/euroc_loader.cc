@@ -1,5 +1,5 @@
 // Native EuRoC data loader: CSV parsing, grayscale PNG decode, threaded
-// prefetch ring. TPU-native equivalent of the reference driver's host-side IO
+// prefetch ring. Native equivalent of the reference driver's host-side IO
 // (Examples/Monocular/mono_EuRoC_vins.cc LoadImages/LoadImus + the per-frame
 // IMU slicing) — the reference decodes images synchronously on the tracking
 // thread; here a worker pool decodes ahead of the consumer so the device never

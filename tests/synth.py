@@ -8,7 +8,7 @@ testing (SURVEY.md section 4).
 import numpy as np
 import jax.numpy as jnp
 
-from mc_slam_tpu import lie
+from mc_slam import lie
 
 G = 9.81
 GW = np.array([0.0, 0.0, -G])

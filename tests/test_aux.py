@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.io import checkpoint
-from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem, OK
-from mc_slam_tpu.settings import load_settings
-from mc_slam_tpu.utils.metrics import StageTimer, VIInitLog
+from mc_slam.camera import make_camera
+from mc_slam.io import checkpoint
+from mc_slam.pipeline.system import SlamConfig, SlamSystem, OK
+from mc_slam.settings import load_settings
+from mc_slam.utils.metrics import StageTimer, VIInitLog
 
 from render import DotWorld
 
@@ -19,7 +19,7 @@ CAM = make_camera(300.0, 300.0, 240.0, 180.0, width=480, height=360)
 def test_checkpoint_resume(tmp_path, rng):
     """Track, checkpoint, restore into a fresh system, keep tracking."""
     import jax
-    from mc_slam_tpu import lie
+    from mc_slam import lie
 
     world = DotWorld(rng)
     cfg = SlamConfig(max_kf=64, max_mp=2048, n_feat=384, n_levels=3,
@@ -98,7 +98,7 @@ def test_stage_timer():
 
 
 def test_viinit_log(tmp_path):
-    from mc_slam_tpu.pipeline.viinit import VIInitResult
+    from mc_slam.pipeline.viinit import VIInitResult
     log = VIInitLog(str(tmp_path))
     res = VIInitResult(bg=jnp.zeros(3), ba=jnp.ones(3), scale=jnp.asarray(2.0),
                        scale_star=jnp.asarray(1.9), gw=jnp.asarray([0., 0., -9.8]),

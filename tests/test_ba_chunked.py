@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.solver import ba, ba_chunked, ba_vi, factors
-from mc_slam_tpu.imu.preintegration import euroc_noise
+from mc_slam import lie
+from mc_slam.solver import ba, ba_chunked, ba_vi, factors
+from mc_slam.imu.preintegration import euroc_noise
 
 from test_solver import CAM, EXT, synth_scene
 
@@ -100,7 +100,7 @@ def test_chunked_vi_gba_sharded_equals_single(rng):
     """Mesh-sharded chunked VI GBA == single-device chunked VI GBA (same
     ChunkedObs layout, 8 chunks over an 8-device mesh)."""
     from test_vi_solver import GW, build_vi_window, kfs_to_navstate
-    from mc_slam_tpu.parallel import dist_ba, dist_gba
+    from mc_slam.parallel import dist_ba, dist_gba
     kfs, pre, pts, obs = build_vi_window(rng, N_kf=6, noise_px=0.3)
     N = 6
     Np = pts.shape[0]

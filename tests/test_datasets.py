@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from mc_slam_tpu.io.datasets import load_kitti_sequence, load_tum_sequence
+from mc_slam.io.datasets import load_kitti_sequence, load_tum_sequence
 
 
 def _write(path, text):

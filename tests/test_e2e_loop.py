@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem, OK
+from mc_slam import lie
+from mc_slam.camera import make_camera
+from mc_slam.pipeline.system import SlamConfig, SlamSystem, OK
 
 CAM = make_camera(300.0, 300.0, 240.0, 180.0, width=480, height=360)
 T_LOOP = 24.0   # seconds for the full 360-degree sweep (pan ~8 px/frame)
@@ -71,8 +71,8 @@ def apply_drift_step(sys, after_frame_id, s=1.002, yaw=0.002,
 
 @pytest.mark.slow
 def test_loop_closure_heals_accumulated_drift(rng):
-    from mc_slam_tpu.frontend import bow, extractor
-    from mc_slam_tpu.pipeline import loopclosing
+    from mc_slam.frontend import bow, extractor
+    from mc_slam.pipeline import loopclosing
 
     world = CylinderWorld(rng)
     # ba_rtol: this scenario injects a NON-physical per-frame Sim3 warp into
@@ -128,7 +128,7 @@ def test_loop_closure_heals_accumulated_drift(rng):
     # early-sequence KFs and late-sequence KFs must share landmarks — without
     # the fusion the two map halves keep duplicate points along the seam and
     # no BA can ever co-constrain them.
-    from mc_slam_tpu.slam_map.mapstate import covisibility_matrix
+    from mc_slam.slam_map.mapstate import covisibility_matrix
     W = np.asarray(covisibility_matrix(sys.m))
     ids = np.asarray(sys.m.kf_id)
     act = np.asarray(sys.m.kf_active)

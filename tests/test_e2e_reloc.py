@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem, OK, LOST
+from mc_slam import lie
+from mc_slam.camera import make_camera
+from mc_slam.pipeline.system import SlamConfig, SlamSystem, OK, LOST
 
 from render import DotWorld
 

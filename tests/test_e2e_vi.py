@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.eval.ate import ate_rmse
-from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem, OK
+from mc_slam.camera import make_camera
+from mc_slam.eval.ate import ate_rmse
+from mc_slam.pipeline.system import SlamConfig, SlamSystem, OK
 
 import synth
 from render import DotWorld

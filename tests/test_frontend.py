@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu.frontend import extractor, fast, matching, orb, pyramid
+from mc_slam.frontend import extractor, fast, matching, orb, pyramid
 
 
 def checkerboard(h=240, w=320, sq=24, lo=40.0, hi=200.0):
@@ -100,10 +100,10 @@ class TestORB:
         blur = pyramid.gaussian_blur(img)
         d = orb.brief_descriptors(blur, xy, orb.ic_angle(img, xy))
         pm1 = orb.unpack_pm1(d)
-        hm_mxu = matching.hamming_matrix(pm1, pm1)
+        hm_gemm = matching.hamming_matrix(pm1, pm1)
         hm_pop = matching.hamming_matrix_popcount(d, d)
-        np.testing.assert_array_equal(np.asarray(hm_mxu), np.asarray(hm_pop))
-        assert np.all(np.diag(np.asarray(hm_mxu)) == 0)
+        np.testing.assert_array_equal(np.asarray(hm_gemm), np.asarray(hm_pop))
+        assert np.all(np.diag(np.asarray(hm_gemm)) == 0)
 
 
 class TestExtractAndMatch:

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.geometry import init2view, pnp, sim3solver
-from mc_slam_tpu.geometry.triangulation import triangulate_two_view
+from mc_slam import lie
+from mc_slam.geometry import init2view, pnp, sim3solver
+from mc_slam.geometry.triangulation import triangulate_two_view
 
 FOCAL = 400.0
 

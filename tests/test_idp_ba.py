@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.solver import ba_vi, factors
-from mc_slam_tpu.solver.ba_vi_idp import IDPObs, idp_to_xyz, vi_ba_idp, xyz_to_idp
+from mc_slam import lie
+from mc_slam.solver import ba_vi, factors
+from mc_slam.solver.ba_vi_idp import IDPObs, idp_to_xyz, vi_ba_idp, xyz_to_idp
 
 from test_vi_solver import CAM, EXT, GW, build_vi_window, kfs_to_navstate
 

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.imu.navstate import NavState, navstate_identity, inc_small
-from mc_slam_tpu.imu.preintegration import (
+from mc_slam import lie
+from mc_slam.imu.navstate import NavState, navstate_identity, inc_small
+from mc_slam.imu.preintegration import (
     euroc_noise, preint_identity, preintegrate, predict_navstate,
 )
 

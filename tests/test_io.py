@@ -1,13 +1,10 @@
 """IO tests: EuRoC reader, native C++ loader parity, trajectory round-trips,
 ATE oracle sanity."""
-import os
-import subprocess
-
 import numpy as np
 import pytest
 
-from mc_slam_tpu.eval.ate import ate_rmse, horn_align
-from mc_slam_tpu.io import euroc, trajectory
+from mc_slam.eval.ate import ate_rmse, horn_align
+from mc_slam.io import euroc, trajectory
 
 
 @pytest.fixture(scope="module")
@@ -47,13 +44,8 @@ def test_euroc_reader(fake_euroc):
 
 
 def test_native_loader_parity(fake_euroc):
-    from mc_slam_tpu.io import native_loader
-    if not native_loader.available():
-        subprocess.run(["make", "-C",
-                        os.path.join(os.path.dirname(__file__), "..", "native")],
-                       check=True, capture_output=True)
-    assert native_loader.available()
-    L = native_loader.NativeEurocLoader(fake_euroc)
+    from mc_slam.io import native_loader
+    L = native_loader.NativeEurocLoader(fake_euroc)   # builds the library
     seq = euroc.load_sequence(fake_euroc)
     py = list(euroc.slice_imu_per_frame(seq))
     n = 0
@@ -69,7 +61,7 @@ def test_native_loader_parity(fake_euroc):
 
 
 def test_trajectory_roundtrip(tmp_path, rng):
-    from mc_slam_tpu import lie
+    from mc_slam import lie
     import jax.numpy as jnp
     traj = []
     for i in range(5):
@@ -105,9 +97,9 @@ def test_stream_driver_backpressure_and_imu_carry(rng):
     their IMU rows into the next processed frame (ros_vio back-pressure
     analog, Examples/ROS/VIO/src/ros_vio.cpp:156-166)."""
     import jax.numpy as jnp
-    from mc_slam_tpu.camera import make_camera
-    from mc_slam_tpu.io.stream import StreamDriver
-    from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem
+    from mc_slam.camera import make_camera
+    from mc_slam.io.stream import StreamDriver
+    from mc_slam.pipeline.system import SlamConfig, SlamSystem
 
     cam = make_camera(300.0, 300.0, 240.0, 180.0, width=480, height=360)
     slam = SlamSystem(cam, SlamConfig(max_kf=16, max_mp=512, n_feat=64,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu import lie
+from mc_slam import lie
 
 
 def random_rotvecs(rng, n=64, scale=2.5):

@@ -5,10 +5,10 @@ oracle vs the batched kernel."""
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu.frontend import orb
-from mc_slam_tpu.pipeline import mapping
-from mc_slam_tpu.slam_map.mapstate import empty_map
-from mc_slam_tpu.solver import factors
+from mc_slam.frontend import orb
+from mc_slam.pipeline import mapping
+from mc_slam.slam_map.mapstate import empty_map
+from mc_slam.solver import factors
 
 
 def _hamming(a, b):
@@ -116,8 +116,8 @@ def test_evict_low_value_frees_slots_and_protects():
     already-inactive ones, and clears dangling associations."""
     import jax.numpy as jnp
     import numpy as np
-    from mc_slam_tpu.pipeline import mapping
-    from mc_slam_tpu.slam_map.mapstate import empty_map
+    from mc_slam.pipeline import mapping
+    from mc_slam.slam_map.mapstate import empty_map
 
     m = empty_map(max_kf=4, max_mp=64, n_feat=8)
     P = 64
@@ -149,3 +149,38 @@ def test_evict_low_value_frees_slots_and_protects():
     # associations to evicted points are cleared
     mp2 = np.asarray(m2.kf_mp[0])
     assert ((mp2 < 0) | a2[np.clip(mp2, 0, 63)]).all()
+
+
+def test_scatter_slots_writes_each_real_slot_once():
+    """Window BA pads its slot list with a repeat of the last slot; the
+    scatter-back must drop the pad rows (a duplicate-index scatter has no
+    defined winner on the GPU) so the real slot keeps its BA result."""
+    from mc_slam.slam_map.mapstate import scatter_slots
+    ks = jnp.asarray([3, 0, 2, 2, 2], jnp.int32)
+    put = scatter_slots(ks, 3, 8)
+    np.testing.assert_array_equal(np.asarray(put), [3, 0, 2, 8, 8])
+    w = jnp.asarray([1.0, 2.0, 3.0, -1.0, -1.0])   # pad rows: stale copies
+    out = jnp.zeros(8).at[put].set(w, mode="drop")
+    np.testing.assert_array_equal(np.asarray(out),
+                                  [2.0, 0, 3.0, 1.0, 0, 0, 0, 0])
+
+
+def test_padded_window_prune_keeps_real_rows(rng):
+    """prune_associations over a window padded with its newest keyframe: the
+    newest keyframe's pruned rows survive the pad rows' unpruned copies."""
+    K, F, P = 6, 8, 32
+    rows = rng.integers(0, P, (K, F)).astype(np.int32)
+    m = empty_map(max_kf=K, max_mp=P, n_feat=F)._replace(
+        kf_mp=jnp.asarray(rows))
+    ks = jnp.asarray([1, 4, 4, 4], jnp.int32)      # window [1, 4] + 2 pads
+    chi2 = np.zeros((4, F), np.float32)
+    chi2[1, :3] = 1e3                              # outliers in slot 4
+    valid = np.zeros((4, F), np.float32)
+    valid[:2] = 1.0                                # pad observations masked
+    m2 = mapping.prune_associations(
+        m, ks, jnp.asarray(chi2.reshape(-1)), jnp.asarray(valid.reshape(-1)),
+        jnp.asarray(5.991), 2)
+    out = np.asarray(m2.kf_mp)
+    assert (out[4, :3] == -1).all()
+    np.testing.assert_array_equal(out[4, 3:], rows[4, 3:])
+    np.testing.assert_array_equal(out[[0, 1, 2, 3, 5]], rows[[0, 1, 2, 3, 5]])

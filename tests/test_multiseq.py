@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.frontend import extractor
-from mc_slam_tpu.frontend.orb import unpack_pm1
-from mc_slam_tpu.parallel import multiseq
-from mc_slam_tpu.pipeline import tracking
-from mc_slam_tpu.slam_map.mapstate import empty_map
-from mc_slam_tpu.solver import factors
+from mc_slam.camera import make_camera
+from mc_slam.frontend import extractor
+from mc_slam.frontend.orb import unpack_pm1
+from mc_slam.parallel import multiseq
+from mc_slam.pipeline import tracking
+from mc_slam.slam_map.mapstate import empty_map
+from mc_slam.solver import factors
 
 from render import DotWorld
 

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu.solver import lm
+from mc_slam.solver import lm
 
 
 def test_behind_camera_never_cheaper_than_in_view():
@@ -111,7 +111,7 @@ def test_two_phase_reclassifies_outliers():
 def test_pnp_lo_ransac_refit_beats_minimal():
     """The weighted-DLT local optimization must not degrade the minimal-set
     solution and typically lifts near-threshold inlier counts."""
-    from mc_slam_tpu.geometry import pnp
+    from mc_slam.geometry import pnp
     rng = np.random.default_rng(3)
     N = 80
     Xw = rng.uniform(-2, 2, (N, 3)).astype(np.float32)

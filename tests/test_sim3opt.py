@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.solver.sim3opt import optimize_sim3
+from mc_slam import lie
+from mc_slam.camera import make_camera
+from mc_slam.solver.sim3opt import optimize_sim3
 
 CAM = make_camera(400.0, 400.0, 320.0, 240.0)
 
@@ -65,7 +65,7 @@ def test_localization_only_mode(rng):
     import sys as _s
     _s.path.insert(0, "tests")
     from render import DotWorld
-    from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem, OK
+    from mc_slam.pipeline.system import SlamConfig, SlamSystem, OK
     cam = make_camera(300.0, 300.0, 240.0, 180.0, width=480, height=360)
     world = DotWorld(rng)
     cfg = SlamConfig(max_kf=64, max_mp=2048, n_feat=384, n_levels=3,

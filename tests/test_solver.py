@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.solver import factors, lm, ba
-from mc_slam_tpu.imu.preintegration import euroc_noise, preintegrate
+from mc_slam import lie
+from mc_slam.camera import make_camera
+from mc_slam.solver import factors, lm, ba
+from mc_slam.imu.preintegration import euroc_noise, preintegrate
 
 CAM = make_camera(400.0, 400.0, 320.0, 240.0, width=640, height=480)
 EXT = factors.identity_extrinsics()

@@ -3,14 +3,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu import lie
-from mc_slam_tpu.camera import make_camera
-from mc_slam_tpu.imu.navstate import NavState
-from mc_slam_tpu.imu.preintegration import (
+from mc_slam import lie
+from mc_slam.camera import make_camera
+from mc_slam.imu.navstate import NavState
+from mc_slam.imu.preintegration import (
     euroc_noise, preintegrate, preint_identity, predict_navstate)
-from mc_slam_tpu.pipeline import viinit
-from mc_slam_tpu.solver import ba, ba_vi, factors
-from mc_slam_tpu.solver.ba import VisualObs
+from mc_slam.pipeline import viinit
+from mc_slam.solver import ba, ba_vi, factors
+from mc_slam.solver.ba import VisualObs
 
 import synth
 

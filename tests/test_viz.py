@@ -4,8 +4,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from mc_slam_tpu.slam_map.mapstate import empty_map
-from mc_slam_tpu.viz import render_frame_overlay, save_map_snapshot
+from mc_slam.slam_map.mapstate import empty_map
+from mc_slam.viz import render_frame_overlay, save_map_snapshot
 
 
 def test_map_snapshot_renders(tmp_path, rng):
