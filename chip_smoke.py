@@ -68,7 +68,8 @@ def on(dev, tree):
 
 def check_hamming(dev, tag, na, nb):
     import jax
-    from mc_slam.frontend import matching, matching_ref
+    from mc_slam.frontend import matching
+    from mc_slam import testing
     from mc_slam.frontend.orb import unpack_pm1
     rng = np.random.default_rng(1)
     a = rng.integers(0, 2**32, (na, 8), dtype=np.uint32)
@@ -77,7 +78,7 @@ def check_hamming(dev, tag, na, nb):
     pb = unpack_pm1(jax.device_put(b, dev))
     f = jax.jit(matching.hamming_matrix)
     got = np.asarray(f(pa, pb))
-    ref = matching_ref.hamming_popcount(a, b)
+    ref = testing.hamming_popcount(a, b)
     if not np.array_equal(got, ref):
         raise AssertionError(f"hamming_matrix differs from popcount in "
                              f"{int((got != ref).sum())} entries")
@@ -89,16 +90,17 @@ def check_hamming(dev, tag, na, nb):
 
 def check_projection_search(dev, tag, M, N):
     import jax
-    from mc_slam.frontend import matching, matching_ref
+    from mc_slam.frontend import matching
+    from mc_slam import testing
     from mc_slam.frontend.orb import unpack_pm1
-    p = matching_ref.projection_problem(np.random.default_rng(2), M, N)
+    p = testing.projection_problem(np.random.default_rng(2), M, N)
     radius = 15.0      # tracking's coarse round (track_frame_vi)
     for ratio in (0.9, None):
         for with_angles in (True, False):
             akw = (dict(proj_angle=p["proj_angle"], feat_angle=p["feat_angle"],
                         proj_angle_valid=p["proj_angle_valid"])
                    if with_angles else {})
-            ref = matching_ref.search_by_projection(
+            ref = testing.search_by_projection(
                 p["proj_uv"], p["proj_valid"], p["proj_level"], p["proj_desc"],
                 p["feat_uv"], p["feat_level"], p["feat_desc"], p["feat_valid"],
                 radius, ratio=ratio, **akw)
@@ -146,7 +148,8 @@ def check_extract(dev, cpu, tag, n_features, n_levels):
     and the orientation moments are float sums whose order differs between
     backends, so a few near-tie keypoints may swap for a neighbour."""
     import jax
-    from mc_slam.frontend import extractor, matching_ref
+    from mc_slam.frontend import extractor
+    from mc_slam import testing
     img = clone_frame()
     out = {}
     for name, d in (("gpu", dev), ("cpu", cpu)):
@@ -165,7 +168,7 @@ def check_extract(dev, cpu, tag, n_features, n_levels):
     nn = np.argmin(d2, axis=1)
     close = d2[np.arange(len(gi)), nn] <= 1.0
     share = float(close.mean())
-    ham = np.asarray([matching_ref.hamming_popcount(
+    ham = np.asarray([testing.hamming_popcount(
         g["desc"][gi[i]][None], c["desc"][ci[nn[i]]][None])[0, 0]
         for i in np.nonzero(close)[0]])
     med = float(np.median(ham)) if ham.size else float("inf")
@@ -287,7 +290,7 @@ def four_cards(tag, n, tiny):
     from mc_slam.bench_problems import gba_map_problem
     from mc_slam.parallel import dist_ba, dist_gba
     from mc_slam.solver import ba_chunked
-    import __graft_entry__ as ge
+    from mc_slam import testing
 
     devs = jax.devices()
     if len(devs) < n:
@@ -340,7 +343,7 @@ def four_cards(tag, n, tiny):
     # ring of the GBA map's keyframe count (at 512 vertices the f32 Cholesky
     # of the 3584-wide ring system already differs by millimetres between
     # two reduction orders after one step)
-    r = ge.posegraph_compare(n, K=64 if tiny else 128)
+    r = testing.posegraph_compare(n, K=64 if tiny else 128)
     log(f"{tag} phase3 pose graph K={r['K']}: max |ds| {r['ds']:.2e} (<= 1e-4),"
         f" |dt| {r['dt']:.2e} (<= 1e-3), |dR| {r['dR']:.2e} (<= 1e-3); "
         f"per LM iteration 1 card {r['t1'] * 1e3:.3f} ms, {n} cards "
@@ -353,7 +356,7 @@ def four_cards(tag, n, tiny):
                 n_feat=256) if tiny else
            dict(n_kf=128, n_pts=12288, obs_per_kf=400, max_kf=512,
                 max_mp=16384, n_feat=1024))
-    r = ge.pipeline_mesh_compare(mesh, **psz)
+    r = testing.pipeline_mesh_compare(mesh, **psz)
     log(f"{tag} phase3 pipeline GBA ({psz['n_kf']} KF, {psz['n_pts']} pts, "
         f"landmarks moved up to {r['moved']:.3f} m): "
         f"max |dP| {r['dP']:.2e} m (<= 5e-3), max |dX| {r['dX']:.2e} m "

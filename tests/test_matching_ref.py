@@ -1,11 +1,12 @@
-"""The JAX matchers against the plain NumPy references (frontend/matching_ref):
+"""The JAX matchers against the plain NumPy references (mc_slam.testing):
 popcount Hamming and the brute-force projection search, bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_slam.frontend import matching, matching_ref
+from mc_slam import testing
+from mc_slam.frontend import matching
 from mc_slam.frontend.orb import unpack_pm1
 
 
@@ -16,7 +17,7 @@ def test_hamming_matrix_matches_popcount(rng):
     b[96] = ~a[0]                   # distance 256
     got = np.asarray(matching.hamming_matrix(unpack_pm1(jnp.asarray(a)),
                                              unpack_pm1(jnp.asarray(b))))
-    ref = matching_ref.hamming_popcount(a, b)
+    ref = testing.hamming_popcount(a, b)
     np.testing.assert_array_equal(got, ref)
     assert (np.diag(ref[:, :96]) == 0).all() and ref[0, 96] == 256
 
@@ -32,7 +33,7 @@ def _search(p, ratio, with_angles, device=None):
         put(p["feat_level"]), unpack_pm1(put(p["feat_desc"])),
         put(p["feat_valid"]), radius_px=15.0, ratio=ratio,
         **{k: put(v) for k, v in akw.items()})
-    ref = matching_ref.search_by_projection(
+    ref = testing.search_by_projection(
         p["proj_uv"], p["proj_valid"], p["proj_level"], p["proj_desc"],
         p["feat_uv"], p["feat_level"], p["feat_desc"], p["feat_valid"],
         15.0, ratio=ratio, **akw)
@@ -42,7 +43,7 @@ def _search(p, ratio, with_angles, device=None):
 @pytest.mark.parametrize("with_angles", [False, True])
 @pytest.mark.parametrize("ratio", [None, 0.9])
 def test_search_by_projection_matches_numpy(rng, ratio, with_angles):
-    p = matching_ref.projection_problem(rng, 2048, 384)
+    p = testing.projection_problem(rng, 2048, 384)
     (idx, dist, ok), (idx_r, dist_r, ok_r) = _search(p, ratio, with_angles)
     np.testing.assert_array_equal(ok, ok_r)
     np.testing.assert_array_equal(idx, idx_r)
@@ -58,7 +59,7 @@ def test_search_by_projection_matches_numpy(rng, ratio, with_angles):
 
 @pytest.mark.gpu
 def test_search_by_projection_on_gpu_matches_numpy(gpu_device):
-    p = matching_ref.projection_problem(np.random.default_rng(2), 16384, 1024)
+    p = testing.projection_problem(np.random.default_rng(2), 16384, 1024)
     (idx, dist, ok), (idx_r, dist_r, ok_r) = _search(p, 0.9, True,
                                                      device=gpu_device)
     np.testing.assert_array_equal(ok, ok_r)
